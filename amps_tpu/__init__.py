@@ -1,13 +1,13 @@
-"""amps_tpu — a TPU-native AMPS base-station signal-processing framework.
+"""amps_tpu — an array-native AMPS base-station signal-processing framework.
 
-A from-scratch JAX/XLA/Pallas rebuild of the capabilities of the
+A from-scratch JAX/XLA rebuild of the capabilities of the
 ``unsynchronized/gr-amps`` GNU Radio module (TIA/EIA-553-A analog cellular
 base station): FOCC/FVC forward-channel transmitters, RECC reverse-channel
 receiver/decoder, command processor, and the surrounding DSP (FM modulation,
-channelization, clock recovery) — redesigned for TPU hardware:
+channelization, clock recovery) — redesigned for an accelerator:
 
 * data plane: batched/array superframe synthesis, GF(2)-matmul BCH codecs,
-  polyphase channelizers and overlap-save FIRs as XLA/Pallas kernels;
+  polyphase channelizers and overlap-save FIRs as XLA programs;
 * control plane: a host-side call-state machine and TCP command server
   mirroring the reference's PMT message-port topology;
 * scale: ``jax.sharding`` meshes over (time, channels) with ``ppermute``

@@ -4,7 +4,7 @@ flowgraphs (grc/ampsbs.grc, grc/ampsbs_rvc.grc, grc/recctest.grc).
     python -m amps_tpu bs       [...]   # BS-in-a-box (ampsbs.grc role)
     python -m amps_tpu monitor  [...]   # RECC capture replay (recctest.grc)
     python -m amps_tpu demo             # end-to-end loopback walkthrough
-    python -m amps_tpu bench            # headline TPU benchmark
+    python -m amps_tpu bench            # headline GPU benchmark
 
 Each subcommand forwards to the corresponding application module; run
 with -h for its options.

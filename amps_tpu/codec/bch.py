@@ -1,11 +1,11 @@
 """Batched BCH(63,51,t=2) codec as GF(2) matmuls + syndrome-LUT gathers.
 
-TPU-first design (SURVEY.md §7 step 1): instead of the reference's per-word
+Array-first design (SURVEY.md §7 step 1): instead of the reference's per-word
 IT++ polynomial arithmetic (itpp::BCH(63,2,true) at lib/focc_impl.cc:105),
 
 * encode is a single (B, 28) @ (28, 12) int32 matmul mod 2 — the parity of
   a systematic cyclic code is a linear map of the info bits, so the whole
-  FOCC/FVC word stream encodes in one MXU-friendly op;
+  FOCC/FVC word stream encodes in one matmul;
 * decode is a (B, 48) @ (48, 12) syndrome matmul mod 2, a pack to a 12-bit
   index, and a gather from a precomputed (4096, 48) error-pattern table
   (t=2, n=63 has 1+48+C(48,2)=1177 correctable patterns; every other
@@ -112,7 +112,7 @@ def _decode_tables(n_code: int):
 def _decode_table_packed(n_code: int) -> np.ndarray:
     """(4096,) int32 syndrome LUT: pos1 | pos2 << 8 | valid << 16.
 
-    TPU-friendly decode: a flat int32 gather (no (4096, n) row gather,
+    Compact decode: a flat int32 lookup (no (4096, n) row gather,
     no separate bool-table gather) followed by an iota-compare that
     rebuilds the <=2-bit error pattern in place.  Positions are indices
     into the n_code TRANSMITTED bits; errors landing in the zero prefix
@@ -159,22 +159,24 @@ def _split_component_tables(key: bytes, shape) -> np.ndarray:
 
 def packed_lut_lookup(idx, table: np.ndarray):
     """table[idx] for a (4096,) packed int table (pos1 | pos2 << 8 |
-    valid << 16) WITHOUT a gather: a per-element gather is ~72k serial
-    scalar loads on the TPU (0.52 ms of the 1024-channel pipeline);
-    factored one-hot contractions cost 0.08 ms (tools/profile_dec9.out).
+    valid << 16) as three factored 16-way one-hot contractions instead
+    of a per-element gather (whether a plain gather is faster on the GPU
+    is open, ROADMAP S6).
 
-    SPLIT-COMPONENT FORM (bf16-exact at DEFAULT matmul precision): the
-    packed 2^17-magnitude values round to multiples of 512 in the MXU's
-    bf16 input pass at default precision (observed on chip: every BCH
-    decode rejected while CPU accepted, tools/soak_tpu.out; the r3 fix
-    was Precision.HIGHEST on the packed contraction — ~3x the dominant
-    matmul cost, docs/ROADMAP.md).  Contracting the three component
-    planes [pos1, pos2, valid] instead keeps every operand <= 255 —
-    integers <= 256 are EXACT in bfloat16 (8 significand bits), one-hot
-    selectors are 0/1, and the MXU accumulates in f32 (sums <= 255:
-    exact) — so default precision is exact and HIGHEST is retired
-    (tests/test_codec.py::test_packed_lut_split_components_bf16_exact).
-    The packed value is rebuilt in f32 (<= 196 863 < 2^24: exact)."""
+    SPLIT-COMPONENT FORM (exact at DEFAULT matmul precision): default
+    precision may round f32 matmul operands — to TF32 (11 significand
+    bits) on an H100's tensor cores, to bf16 (8 bits) on other matrix
+    units — and the packed 2^17-magnitude values do not survive either
+    rounding (every BCH decode would be rejected on the device while
+    the CPU accepts).
+    Contracting the three component planes [pos1, pos2, valid] instead
+    keeps every operand <= 255 — integers <= 256 are exact in bf16 and
+    TF32 alike, one-hot selectors are 0/1, and accumulation is f32
+    (sums <= 255: exact) — so default precision is exact and needs no
+    Precision.HIGHEST (tests/test_codec.py::
+    test_packed_lut_split_components_bf16_exact and
+    test_integer_contractions_exact_in_tf32).  The packed value is
+    rebuilt in f32 (<= 196 863 < 2^24: exact)."""
     T2 = jnp.asarray(_split_component_tables(table.tobytes(), table.shape))
     oh_a = ((idx >> 8)[..., None] == jnp.arange(16, dtype=jnp.int32)) \
         .astype(jnp.float32)
@@ -241,7 +243,8 @@ def recc_decode_table_packed() -> np.ndarray:
 
 def _encode(info, k_info: int, n_out: int):
     info = jnp.asarray(info, dtype=jnp.uint8)
-    # f32 matmul: TPU has no fast int matmul; counts <= 51 are exact
+    # f32 matmul of 0/1 operands: counts <= 51 are exact at any
+    # operand rounding (bf16, TF32) since accumulation is f32
     P = jnp.asarray(_parity_matrix(k_info), dtype=jnp.float32)
     parity = jnp.mod(info.astype(jnp.float32) @ P, 2.0)
     return jnp.concatenate([info, parity.astype(jnp.uint8)], axis=-1)

@@ -30,16 +30,15 @@ def manchester_decode_bits(symbols01):
     """(..., 2n) sliced 0/1 symbols -> ((..., n) bits, (...,) bad count)."""
     s = jnp.asarray(symbols01)
     # stride-2 slices, not a (..., 2)-minor reshape (a minor dim of 2
-    # wastes 126/128 TPU lanes on every downstream op)
+    # makes every downstream op work on narrow rows)
     a = s[..., 0::2].astype(jnp.int32)
     # (1,0)->0 (0,1)->1 (1,1)->0+bad (0,0)->1+bad: the output bit is always
     # the complement of the first half-symbol (lib/utils.cc:36-53).
     bits = (1 - a).astype(jnp.uint8)
     # bad count = pairs whose halves AGREE.  Computed from a CONTIGUOUS
     # adjacent-xor masked to even offsets — a==b on two stride-2 views
-    # is a lane-granularity gather pass that measured ~0.4 ms of the
-    # 1024-channel RX pipeline (tools/profile_rx19.out); the masked form
-    # reads the symbols once, fully vectorized.
+    # is a strided gather pass; the masked form reads the symbols once,
+    # fully vectorized.
     n2 = s.shape[-1]
     agree = 1 - jnp.bitwise_xor(s[..., :-1], s[..., 1:]).astype(jnp.int32)
     mask = jnp.asarray((1 - np.arange(n2 - 1) % 2).astype(np.int32))

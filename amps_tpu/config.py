@@ -1,4 +1,4 @@
-"""Typed configuration for the AMPS TPU pipeline.
+"""Typed configuration for the AMPS pipeline.
 
 The reference hardcodes system constants (``GLOBAL_SID``/``GLOBAL_DCC_SHORT``/
 ``GLOBAL_SCC`` at lib/amps_packet.h:12-14, channels 355/356 at

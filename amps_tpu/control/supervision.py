@@ -44,7 +44,7 @@ class SupervisionConfig:
     st_flash_min_s: float = 0.25   # 400 ms flash window (553 §2.7.2)
     st_flash_max_s: float = 0.8
     # Answer debouncing, both directions, thresholds from the fading
-    # study (tools/sup_fading_sweep.out, docs/BER.md):
+    # study (tools/sup_fading_sweep.py, docs/BER.md):
     # * arm: 0.2 s of ACCUMULATED ringing ST must be heard before an ST
     #   drop can count as the answer — fading's isolated false-ST
     #   frames (runs <= 0.03 s) cannot arm it, while genuinely ringing
@@ -66,7 +66,7 @@ class SupervisionConfig:
     #   accumulator to the arm threshold without ever ringing (r4
     #   advisor finding); with half-rate decay, arming needs an ST duty
     #   cycle > 1/3 — fading's isolated false-ST hits are far sparser
-    #   (runs <= 0.03 s, isolated; tools/sup_fading_sweep.out), while a
+    #   (runs <= 0.03 s, isolated; tools/sup_fading_sweep.py), while a
     #   genuinely ringing faded signal (ST in >= 59% of carrier frames
     #   even at 6 dB fast fading) still arms in <= ~0.6 s.
     st_arm_decay_ratio: float = 0.5
@@ -82,8 +82,8 @@ class SupervisionConfig:
     # +-1-deviation data frames as carrier loss) while staying >2x
     # below the dead-carrier noise power.  Without this squelch, random
     # ST-bin hits on a dead carrier fire spurious flash events
-    # (observed on chip, tools/soak_voice_tpu.out run 1: 'flash' on
-    # slot B during the post-fade dead carrier).
+    # (observed in the voice soak on the device: 'flash' on slot B
+    # during the post-fade dead carrier).
     max_power: float = 2.0
     # ST dominance gate: the 10 kHz bin must beat the empty guard bins
     # (rx/voice.GUARD_TONES_HZ noise reference, levels column 4) by this
@@ -91,9 +91,8 @@ class SupervisionConfig:
     # dead-carrier discriminator noise is white, so its ST bin matches
     # the guard bins (ratio ~1, Rayleigh-fluctuating) — a >=2x
     # dominance run of flash length is then vanishingly unlikely even
-    # for frames that slip the power squelch.  Kills the chip-observed
-    # FM-click spurious flash class (tools/soak_voice_tpu.out run 1;
-    # VERDICT r3 item 4).  Frames without a guard column (legacy (F, 4)
+    # for frames that slip the power squelch.  Kills the FM-click
+    # spurious flash class the voice soak observed on the device.  Frames without a guard column (legacy (F, 4)
     # feeds, e.g. SimMobile.supervision_frames) skip the gate.
     st_guard_ratio: float = 2.0
     # Guard-bin carrier gate: the power squelch alone cannot catch a

@@ -1,17 +1,18 @@
 """Ratio-2 oversampled polyphase channelizers (analysis + synthesis).
 
-This is the TPU-native replacement for the reference's manual per-channel
+This is the array-native replacement for the reference's manual per-channel
 mixer bank (analog_sig_source + multiply + add at 60/90/120 kHz,
 grc/ampsbs.grc:841-904 and grc/ampsbs_rvc.grc) and the scalability path to
 1000+ simultaneous AMPS channels (BASELINE.json): one wideband stream at
 M x 30 kHz <-> M channel streams at 60 ksps (2x oversampled so the 30 kHz
 channel shape fits without aliasing).
 
-Design notes (TPU-first):
+Design notes (ROADMAP S6 re-measures each on the GPU):
 * The channel transform is a DENSE DFT-as-matmul with precomputed
-  cos/sin matrices — on the MXU this beats scattered FFT butterflies for
-  M up to a few hundred, and it keeps the whole pipeline real-valued
-  (riq float32 (..., 2)); no complex dtypes, no jnp.fft.
+  cos/sin matrices — a matrix unit runs it faster than scattered FFT
+  butterflies for M up to a few hundred, and it keeps the whole
+  pipeline real-valued (riq float32 (..., 2)); no complex dtypes, no
+  jnp.fft.
 * The polyphase fold is a windowed gather + reshape + sum — XLA fuses it
   with the matmuls.
 * Hop size P = M/2 (2x oversampling) makes the per-hop phase correction
@@ -106,7 +107,7 @@ def _dft_split_mats(M: int, M2: int):
       E+[k,r] = E1+[k1,m1] * tw[k2,m1] * E2+[k2,m2],
       tw[k2,m1] = exp(+j 2π k2 m1 / M).
     Cuts the transform from M^2 to M*(M1+M2) MACs per hop — 8x fewer at
-    M=1024 (M2=128) while keeping a 128-deep MXU contraction in stage 1.
+    M=1024 (M2=128), with a 128-deep contraction in stage 1.
     Returns (C2, S2, C1, S1, twc, tws) float32.
     """
     assert M % M2 == 0
@@ -128,7 +129,7 @@ def _dft_mats_folded(M: int):
     permutation into the matrix columns instead,
       y[k,n] = sum_q Eo[k,q] fo[n,q] + Ee[k,q] fe[n,q],
       Eo[k,q] = E+[k, P-1-q],  Ee[k,q] = E+[k, M-1-q],
-    the banks feed the MXU directly in their natural (Nh, P) layout —
+    the banks feed the matmul directly in their natural (Nh, P) layout —
     no flip, no concat, no transpose materialization.
     Returns (Co, So, Ce, Se), each (M, P) float32.
     """
@@ -146,7 +147,7 @@ def _dft_mats_folded(M: int):
 @functools.cache
 def _dft_mats_folded_fused(M: int) -> np.ndarray:
     """One (2M, 4P) matrix computing BOTH derotated output planes from
-    the concatenated fold banks in a single MXU pass.
+    the concatenated fold banks in a single matmul.
 
     With v_cat = [or | oi | er | ei] (the odd/even bank I/Q planes along
     the contraction axis) and the per-channel derotation e^{+j 2π k / M}
@@ -174,10 +175,14 @@ def _dft_mats_folded_fused(M: int) -> np.ndarray:
 
 
 def default_split(M: int) -> int:
-    """Auto split factor M2 for the channel transform: two-stage with a
-    128-deep first contraction once M is large enough that the dense
-    (M, M) matmul dominates; 0 (dense) otherwise."""
-    return 128 if (M % 128 == 0 and M >= 512) else 0
+    """Auto split factor M2 for the channel transform: 0, the dense
+    (M, M) matmul pair, at every M.  On an H100 the dense form
+    synthesizes the bench's 1024-channel TX block in 0.580 ms against
+    0.618 ms for the two-stage split=128 (tools/profile_rx_block.py);
+    tensor cores make the split's 8x FLOP saving worth less than its
+    extra passes.  The RX bank fold ("bank") takes no split; synthesis
+    and the conv/shift folds do."""
+    return 0
 
 
 def _transform_chmajor(vr, vi, M: int, bf16: bool, split: int):
@@ -204,10 +209,10 @@ def _transform_chmajor(vr, vi, M: int, bf16: bool, split: int):
     Nh = vr.shape[-1]
     v2r = vr.reshape(shp + (M2, M1, Nh))     # [m2, m1] = r = m1 + M1*m2
     v2i = vi.reshape(shp + (M2, M1, Nh))
-    # stage 1: contract m2 (depth M2 on the MXU)
+    # stage 1: contract m2 (depth M2)
     Ar = dot("ab,...bmn->...amn", C2, v2r) - dot("ab,...bmn->...amn", S2, v2i)
     Ai = dot("ab,...bmn->...amn", S2, v2r) + dot("ab,...bmn->...amn", C2, v2i)
-    # twiddle (elementwise, VPU)
+    # twiddle (elementwise)
     tc = twc[:, :, None]
     ts = tws[:, :, None]
     Br = tc * Ar - ts * Ai
@@ -247,7 +252,7 @@ def _transform_hopmajor(yr, yi, M: int, bf16: bool, split: int):
     # stage 1: contract k1 with E1+[k1, m1] -> A[..., k2, m1]
     Ar = dot("ka,...kc->...ca", C1, y2r) - dot("ka,...kc->...ca", S1, y2i)
     Ai = dot("ka,...kc->...ca", S1, y2r) + dot("ka,...kc->...ca", C1, y2i)
-    # twiddle tw[k2, m1] (elementwise, VPU)
+    # twiddle tw[k2, m1] (elementwise)
     Br = twc * Ar - tws * Ai
     Bi = tws * Ar + twc * Ai
     # stage 2: contract k2 with E2+[k2, m2] -> U[..., m2, m1];
@@ -304,16 +309,18 @@ def _analyze_block_chmajor(x_ext, h, M: int, T: int, hop0_parity=0,
     demod/correlator stages consume with zero transposes.
 
     bf16=True runs the channel-transform matmuls with bfloat16 inputs
-    (f32 accumulation) — ~4x MXU rate on v5e at ~45 dB SNR, plenty for
-    FM demod; keep f32 (default) for bit-parity test paths.
+    (f32 accumulation) — 53 dB output SNR against float64 at M=1024,
+    plenty for FM demod; keep f32 (default) for bit-parity test paths.
+    f32 runs at default matmul precision, which is TF32 on an H100's
+    tensor cores (72 dB at M=1024; chip_smoke.py measures both).
     split=M2 (>0) uses the two-stage Cooley-Tukey transform (see
     _dft_split_mats); fold="shift" computes the polyphase fold as T
-    unrolled shifted multiply-adds (pure VPU elementwise, no grouped
+    unrolled shifted multiply-adds (pure elementwise, no grouped
     conv) — same numerics up to f32 summation order.
     planar=True returns (..., 2, M, Nh) — I/Q as separate planes
-    instead of a (..., 2)-minor axis.  A minor dim of 2 pads TPU
-    (8, 128) tiles at 1.6% lane utilization; downstream per-channel
-    stages (demod, correlation) should consume planes."""
+    instead of a (..., 2)-minor axis, which would make every
+    elementwise op work on rows of two; downstream per-channel stages
+    (demod, correlation) should consume planes."""
     L = M * T
     P = M // 2
     n_ext = x_ext.shape[-1 if planar_in else -2]
@@ -338,7 +345,7 @@ def _analyze_block_chmajor(x_ext, h, M: int, T: int, hop0_parity=0,
         # (..., Nh, 4P) operand [or | oi | er | ei] (the concatenate
         # fuses into the fold's multiply-add producers) and apply the
         # fused (2M, 4P) transform+derotation matrix once — the operand
-        # is read ONCE by the MXU instead of four (Nh, P) planes twice
+        # is read ONCE by the matmul instead of four (Nh, P) planes twice
         # each, and out IS the planar (2, M, Nh) result up to a reshape.
         fold_t = jnp.bfloat16 if bf16 else jnp.float32
         if planar_in:
@@ -367,7 +374,7 @@ def _analyze_block_chmajor(x_ext, h, M: int, T: int, hop0_parity=0,
     if fold == "bankp":
         # PAIRED variant of "bank": four einsums with (2M, P) column
         # blocks of the fused transform+derotation matrix — each folded
-        # bank is read ONCE by the MXU (the plain bank path reads every
+        # bank is read ONCE by the matmul (the plain bank path reads every
         # bank twice, once per cos/sin matrix: the dominant analyze
         # traffic), with NO data concatenation (bank2's loss was the
         # materialized (Nh, 4P) operand copy; here only the CONSTANT
@@ -414,14 +421,14 @@ def _analyze_block_chmajor(x_ext, h, M: int, T: int, hop0_parity=0,
         # Fully planar path: deinterleave once, fold both banks as
         # shifted multiply-adds on (2, nblk, P) planes, and apply the
         # permutation-absorbed transform matrices straight to the banks
-        # (no flip/concat/transpose between fold and MXU).
+        # (no flip/concat/transpose between fold and matmul).
         # bf16: fold COMPUTE stays f32 (the shifted multiply-adds fuse
-        # into one VPU pass over the f32 input), but the folded banks —
-        # matmul operands that must materialize in HBM (2x (2, Nh, P)
-        # planes, the analyze stage's dominant traffic) — are written in
-        # bfloat16, halving the bytes the transform matmuls re-read.
-        # (Folding IN bf16 measured slower: it adds an input-cast pass
-        # and bf16 multiply-adds on the VPU, tools/profile_rx18.out.)
+        # into one elementwise pass over the f32 input), but the folded
+        # banks — matmul operands that must materialize in device memory
+        # (2x (2, Nh, P) planes, the analyze stage's dominant traffic) —
+        # are written in bfloat16, halving the bytes the transform
+        # matmuls re-read.  (Folding IN bf16 would add an input-cast
+        # pass.)
         fold_t = jnp.bfloat16 if bf16 else jnp.float32
         if planar_in:
             xpl = x_ext[..., : nblk * P]                         # (..., 2, n)
@@ -463,7 +470,8 @@ def _analyze_block_chmajor(x_ext, h, M: int, T: int, hop0_parity=0,
         return jnp.stack([yr2 * sgn, yi2 * sgn], axis=-1)
     if fold == "shift":
         # T unrolled shifted multiply-adds over the (nblk, P, 2) block
-        # view — one fused VPU loop, no grouped conv, no input transpose
+        # view — one fused elementwise loop, no grouped conv, no input
+        # transpose
         bl32 = blocks.astype(jnp.float32)
         ke = k_even[:, :, None]                                  # (T, P, 1)
         ko = k_odd[:, :, None]
@@ -558,8 +566,7 @@ def _synthesize_block(Y, g, M: int, T: int, hop0_parity, carry,
         # blocks on both ends and accumulate LP shifted SLICES — the
         # slices are views XLA fuses into one multiply-add loop, where
         # the earlier per-term jnp.pad forms materialized LP full-size
-        # (nb_out, P) arrays (the TX synth stage's dominant cost,
-        # tools/profile_tx7.out).
+        # (nb_out, P) arrays (the TX synth stage's dominant cost).
         pad = [(0, 0)] * len(batch) + [(LP - 1, LP - 1), (0, 0)]
         upad = jnp.pad(uplane, pad)                      # (..., Nh+2LP-2, M)
         out = None

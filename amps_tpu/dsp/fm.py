@@ -23,9 +23,8 @@ def fast_atan2(y, x):
 
     GR's quadrature_demod uses gr::fast_atan2f (a table/poly
     approximation), so an approximated arg() is MORE reference-faithful
-    than the exact transcendental — and several times cheaper on the
-    VPU (exact arctan2 measured 3.3/13 ms of the 1024-channel RX
-    pipeline).  Octant reduction + odd minimax polynomial in z on
+    than the exact transcendental — and cheaper.  Octant reduction +
+    odd minimax polynomial in z on
     [0, 1], one divide total.
     """
     y = jnp.asarray(y, jnp.float32)
@@ -111,8 +110,8 @@ def fm_modulate(x, sensitivity: float, phase0=0.0):
 
 def quadrature_demod_planar(xr, xi, gain: float = 1.0, prev=None,
                             return_power: bool = False):
-    """quadrature_demod on planar I/Q planes (TPU-friendly layout: a
-    (..., 2)-minor axis wastes 126/128 lanes of every tile).
+    """quadrature_demod on planar I/Q planes (a (..., 2)-minor axis
+    would make every elementwise op work on rows of two).
 
     xr, xi: (..., n) float32 planes.  ``prev``: (pr, pi) arrays of
     shape (...,) — the previous block's last sample — or None.

@@ -64,11 +64,10 @@ def random_events(n_events: int, spec: MultichannelSpec, total_hops: int,
     return out
 
 
-def synthesize_reverse_band(events: List[MobileEvent],
-                            spec: MultichannelSpec, total_hops: int,
-                            noise_sigma: float = 0.0,
-                            seed: int = 1) -> np.ndarray:
-    """(total_hops * M/2, 2) wideband riq with all event bursts placed."""
+def event_plane(events: List[MobileEvent], spec: MultichannelSpec,
+                total_hops: int) -> np.ndarray:
+    """(total_hops, M, 2) per-channel baseband with every event's RECC
+    burst (DCC 0) FM-modulated at its start hop."""
     pipe = spec.pipe
     sens = 2 * np.pi * pipe.deviation_hz / pipe.chan_rate
     Y = np.zeros((total_hops, spec.num_channels, 2), np.float32)
@@ -78,7 +77,16 @@ def synthesize_reverse_band(events: List[MobileEvent],
         bb = np.asarray(bb)
         n = min(len(bb), total_hops - ev.start_hop)
         Y[ev.start_hop: ev.start_hop + n, ev.channel] = bb[:n]
-    x, _ = chz.synthesize(Y, spec.chz_spec,
+    return Y
+
+
+def synthesize_reverse_band(events: List[MobileEvent],
+                            spec: MultichannelSpec, total_hops: int,
+                            noise_sigma: float = 0.0,
+                            seed: int = 1) -> np.ndarray:
+    """(total_hops * M/2, 2) wideband riq with all event bursts placed."""
+    x, _ = chz.synthesize(event_plane(events, spec, total_hops),
+                          spec.chz_spec,
                           chz.synthesizer_init(spec.chz_spec))
     x = np.asarray(x)
     if noise_sigma > 0:

@@ -75,7 +75,7 @@ def decode_focc_stream(symbols, sps: int = 1,
     can carry the undecoded tail into the next call — a frame
     straddling a block boundary is otherwise silently dropped (found by
     the 16-call soak: one mobile of sixteen missed its voice-channel
-    assignment that way, tools/soak_multicall16_cpu.out run 1).
+    assignment that way).
     """
     # search the sample phase too (an RF demod feed has arbitrary
     # symbol timing; integrate-and-dump at each of the sps phases and

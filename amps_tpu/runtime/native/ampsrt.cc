@@ -1,8 +1,8 @@
 // ampsrt — native host runtime for amps_tpu.
 //
 // The reference's L3 is the GNU Radio 3.7 scheduler: one thread per block
-// with lock-free ring buffers between them (SURVEY.md §1 L3).  The TPU
-// build's device pipeline replaces the block graph, but the HOST side
+// with lock-free ring buffers between them (SURVEY.md §1 L3).  The
+// device pipeline replaces the block graph, but the HOST side
 // still needs native-speed plumbing around it:
 //   * a lock-free SPSC ring buffer for IQ/symbol streaming between the
 //     IO thread (SDR/file/socket) and the device-feeder thread;

@@ -1,14 +1,18 @@
 """ctypes bindings for the native host runtime (libampsrt.so).
 
-Auto-builds on first import if the shared object is missing (g++ is in
-the image; pybind11 is not, hence the plain C ABI).  All functions fall
-back to None if the toolchain is unavailable — callers must check
-``available()``.
+The library is built from ``native/ampsrt.cc`` with g++ at first use,
+into ``native/build/`` (listed in .gitignore), so every machine runs a
+binary built from the tree it checked out.  The build is atomic:
+compiled to a temporary name and renamed into place under a file lock,
+so concurrent importers (test workers) never load a half-written file.
+Plain C ABI (no pybind11).  Callers must check ``available()``: without
+a toolchain every binding is unavailable.
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import os
 import subprocess
 from typing import Optional
@@ -16,24 +20,38 @@ from typing import Optional
 import numpy as np
 
 _DIR = os.path.join(os.path.dirname(__file__), "native")
-_SO = os.path.join(_DIR, "libampsrt.so")
+_SRC = os.path.join(_DIR, "ampsrt.cc")
+_SO = os.path.join(_DIR, "build", "libampsrt.so")
 _lib: Optional[ctypes.CDLL] = None
 
 
-def _build() -> bool:
-    try:
-        subprocess.run(["/bin/sh", os.path.join(_DIR, "build.sh")],
-                       check=True, capture_output=True)
-        return True
-    except Exception:
-        return False
+def build(so_path: str = _SO) -> bool:
+    """Compile ampsrt.cc into ``so_path`` unless it exists; True when
+    the library is there afterwards."""
+    os.makedirs(os.path.dirname(so_path), exist_ok=True)
+    with open(so_path + ".lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if os.path.exists(so_path):
+            return True
+        tmp = f"{so_path}.{os.getpid()}.tmp"
+        try:
+            subprocess.run(["g++", "-O3", "-fPIC", "-shared", "-Wall",
+                            "-Wextra", "-std=c++17", "-o", tmp, _SRC],
+                           check=True, capture_output=True)
+            os.replace(tmp, so_path)
+            return True
+        except (OSError, subprocess.CalledProcessError):
+            return False
+        finally:
+            if os.path.exists(tmp):
+                os.remove(tmp)
 
 
 def _load() -> Optional[ctypes.CDLL]:
     global _lib
     if _lib is not None:
         return _lib
-    if not os.path.exists(_SO) and not _build():
+    if not build():
         return None
     lib = ctypes.CDLL(_SO)
     u8p = ctypes.POINTER(ctypes.c_uint8)

@@ -6,7 +6,7 @@ the flowgraph down).  Here the receiver's carried state is explicit
 
 * every ``checkpoint_blocks`` pushes, snapshot the carried state on the
   host and drop the replay ring;
-* if the receiver's push raises (device lost/preempted/wedged, XLA
+* if the receiver's push raises (device lost/preempted/hung, XLA
   runtime error), build a FRESH receiver via the factory (new device
   buffers and executables), restore the snapshot, replay the retained
   blocks, and continue — the resumed stream is bit-identical to an

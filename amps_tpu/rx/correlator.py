@@ -4,8 +4,8 @@ timing recovery.
 The reference finds bursts with byte-exact ``memmem`` over hard-sliced
 symbols after a per-sample Mueller&Müller feedback loop
 (lib/recc_impl.cc:76-79,118; clock_recovery_mm omega=10).  That loop is
-inherently sequential — the one part of the reference that cannot map to a
-TPU.  The TPU-idiomatic replacement (SURVEY.md §3.5 note):
+inherently sequential — the one part of the reference that cannot map to an
+array machine.  The array-idiomatic replacement (SURVEY.md §3.5 note):
 
 1. correlate the oversampled FM-demod signal against the ±1 Manchester
    template of the 37-bit seizure trigger (26 dotting + 11 word-sync bits,
@@ -62,8 +62,7 @@ def trigger_template(sps: int) -> np.ndarray:
     return np.repeat(pair, sps)
 
 
-CORR_BLOCK = 256   # output lags per Toeplitz block (MXU-friendly;
-                   # tools/profile_corr.out: 256 beats 512/128/64 in-pipeline)
+CORR_BLOCK = 256   # output lags per Toeplitz block (not tuned on the GPU)
 
 
 def _win_pieces(width: int, stride: int) -> int:
@@ -92,10 +91,9 @@ def _windowed(x, stride: int, width: int, nblk: int):
 def _detection_kernels(sps: int, O: int = CORR_BLOCK):
     """Banded Toeplitz matmul operator computing both correlations.
 
-    A 222-tap C=1 conv on TPU re-reads the input once per tap (~7 GB of
-    HBM traffic for a 1024x8192 demod block — measured 9.8 ms, half the
-    whole RX pipeline).  Blocked as a Toeplitz matmul, each input
-    window is read ONCE and all lags ride the MXU:
+    A 222-tap C=1 conv can re-read the input once per tap (~7 GB of
+    memory traffic for a 1024x8192 demod block).  Blocked as a Toeplitz
+    matmul, each input window is read ONCE and all lags are one matmul:
 
       out[b*O + j, k] = sum_u x[b*O + j + u] tmpl_k[u]
                       = (win_b @ T)[j, k],   win_b = x[b*O : b*O+O+L-1]
@@ -147,7 +145,7 @@ def find_bursts(demod, sps: int, max_bursts: int = 4,
     wins = _windowed(xp, O, O + L - 1, nblk)       # (..., nblk, O+L-1)
     out = wins @ jnp.asarray(T)                    # (..., nblk, 2*O)
     # window energies from the SAME window stack (exact box sums — no
-    # cumsum cancellation in silent stretches), one more MXU pass
+    # cumsum cancellation in silent stretches), one more matmul
     een = (wins * wins) @ jnp.asarray(E)
 
     def unblk(a):
@@ -235,16 +233,15 @@ def find_bursts_phases(phases, sps: int, max_bursts: int = 4,
 
     # out_bf16: write the correlation/energy matmul outputs (the biggest
     # arrays this stage touches — 2x (..., nblk, 2*O) per operator) and
-    # the derived quality plane in bfloat16.  The MXU still accumulates
-    # in f32; quality only feeds a >= threshold compare and an argmax
+    # the derived quality plane in bfloat16.  Accumulation stays f32;
+    # quality only feeds a >= threshold compare and an argmax
     # ranking, which tolerate 8-bit mantissas.
     acc_t = jnp.bfloat16 if out_bf16 else jnp.float32
 
     # Four thin (O, 2O) matmuls.  A fused square (4O, 4O) block GEMM
-    # with LHS = [p0 | p1 | p0^2 | p1^2] was measured and REJECTED:
-    # 2147 vs 2273 Msps @1024ch (tools/profile_rx26.out) — the LHS
-    # concat materializes an extra operand copy and the block zeros
-    # double the MACs; the thin form's operands are pure reshape views.
+    # with LHS = [p0 | p1 | p0^2 | p1^2] would materialize an extra
+    # operand copy and its block zeros double the MACs; the thin form's
+    # operands are pure reshape views.
     def mm(a, W):   # matmul in the data dtype, f32 accumulation
         return jnp.matmul(a, jnp.asarray(W).astype(x.dtype),
                           preferred_element_type=acc_t)
@@ -285,7 +282,7 @@ def find_bursts_phases(phases, sps: int, max_bursts: int = 4,
             # suppress the FULL capture extent forward of each accepted
             # trigger, not just +-L: random word data inside an active
             # burst correlates at ~0.6 often enough to re-trigger
-            # (observed at 420-burst scale, tools/soak_long_tpu.out).
+            # (observed at 420-burst scale in the long soak).
             # The reference cannot re-trigger there either — its memmem
             # search resumes after the 3374-symbol capture
             # (lib/recc_impl.cc:118-126).
@@ -304,11 +301,11 @@ def find_bursts_phases(phases, sps: int, max_bursts: int = 4,
 def trigger_errors(phases, starts, sps: int):
     """Post-capture trigger verification: hard-slice the 74 trigger
     symbols PRECEDING each candidate start and count mismatches against
-    the exact trigger pattern — the TPU equivalent of the reference's
+    the exact trigger pattern — the array equivalent of the reference's
     exact ``memmem`` symbol match (lib/recc_impl.cc:118), which can
     never fire on silence or misaligned data.
 
-    Why it exists (stream64 triage, tools/triage_stream64.out): under
+    Why it exists (the 64-block streaming soak's triage): under
     CFO + deep fading the normalized correlation occasionally clears the
     threshold a few hundred symbols BEFORE a real burst (or on noise).
     Such a false candidate becomes complete-in-window one small block
@@ -372,9 +369,9 @@ def trigger_errors(phases, starts, sps: int):
 
 # Default gate: a real burst that decodes slices its trigger with ~0-3
 # mismatches even at the BER floor; silence/misaligned windows score
-# ~37/74, and the chip-only bf16-leakage FM-capture ghosts of the
-# stream64 probe (tools/probe_gate_tpu.out) scored 8-14.  6 separates
-# all observed populations.
+# ~37/74, and the bf16-leakage FM-capture ghosts (seen only on a
+# device running the bf16 transform, never on the f32 CPU path) scored
+# 8-14.  6 separates all observed populations.
 MAX_TRIGGER_ERRORS = 6
 
 
@@ -397,12 +394,10 @@ def window_power_blocks(parts, B: int = RSSI_BLOCK):
 
     Why: the power series is an intermediate of the demod fusion
     ((M, Nh) f32 — ~100 MB/block at the bench config); concatenating it
-    with the carried overlap and re-reading it inside burst_rssi cost
-    ~0.25 ms/block of pure HBM traffic (tools/profile_cl1.out find-stage
-    marginal; the r3 bench regression 2208 -> 1932 Msps).  Reducing each
-    part in place lets XLA fuse the blocked sum into the producer, so
-    only the (..., nb) block means and the (..., OVR) carry tail ever
-    touch HBM.
+    with the carried overlap and re-reading it inside burst_rssi is
+    pure memory traffic.  Reducing each part in place lets XLA fuse the
+    blocked sum into the producer, so only the (..., nb) block means and
+    the (..., OVR) carry tail ever reach device memory.
     """
     total = sum(int(p.shape[-1]) for p in parts)
     nb = -(-total // B)
@@ -438,8 +433,8 @@ def burst_rssi_blocks(blk, starts, sps: int):
 
     A per-block per-channel mean rssi cannot separate an adjacent-
     channel FM-capture ghost from a real burst sharing the block with
-    one (the ghost rides the real burst's power — stream64 probe,
-    tools/probe_gate_tpu.out); measuring over [start, start+capture)
+    one (the ghost rides the real burst's power); measuring over
+    [start, start+capture)
     restores the 20+ dB ghost/real separation regardless of what else
     the channel carried that block.
 
@@ -476,9 +471,8 @@ def _dump_matrix(sps: int) -> np.ndarray:
     """(SYM_BLOCK*sps + sps - 1, sps*SYM_BLOCK) blocked integrate-and-
     dump operator: out[:, p*B + j] = mean(x[p + j*sps : p + (j+1)*sps])
     for a window of B=SYM_BLOCK symbols.  A direct reshape(nsym, sps)
-    .mean(-1) puts sps(=3) on the minor axis — 3/128 TPU lane
-    utilization, measured 9.6 ms of a 20 ms pipeline; as a windowed
-    matmul the phase streams cost one MXU pass."""
+    .mean(-1) puts sps(=3) on the minor axis (rows of three); as a
+    windowed matmul the phase streams cost one matmul."""
     B = SYM_BLOCK
     W = np.zeros((B * sps + sps - 1, sps * B), np.float32)
     for p in range(sps):
@@ -550,8 +544,7 @@ def extract_from_phases(phases, starts, sps: int, hard_dtype=jnp.uint8,
     start in the same one-hot pass and return them as a third output
     (..., K, lead) — used with lead=TRIGGER_SYMBOLS so post-capture
     trigger verification rides the capture's existing full-plane read
-    instead of re-reading phases (the standalone trigger_errors path
-    measured ~8%% of the whole RX block, tools/profile_gate_cost2.log).
+    instead of re-reading phases.
     The assert bounds lead so the capture tail can never be shifted
     past the extracted buffer: the realign offset r reaches B-1, so
     lead + CAPTURE_SYMBOLS + (B-1) must fit in nout*B (r3 advisor

@@ -21,8 +21,8 @@ first_ok ranking and the majority vote.  Rationale: the (48,36) code has
 1177 decodable syndromes of 4096, so a *noise* repeat BCH-"succeeds"
 with p~0.29 — the reference's sequential fallback
 (lib/recc_decode_impl.cc:100-107) will then deliver an aliased word with
-ok=True before ever reaching a later clean repeat.  Observed on chip:
-tools/soak_stream64_v2_run1.out (word 1 selected with 73/240 bad
+ok=True before ever reaching a later clean repeat.  Observed in the
+64-block streaming soak on the device (word 1 selected with 73/240 bad
 symbols, word_ok=True, wrong bits).  With the gate, noisy repeats are
 erasures: first_ok picks the first *clean* decodable repeat, majority
 votes only among clean repeats, and a word with zero clean decodable
@@ -32,9 +32,8 @@ Parsing uses the BCH-corrected bits — the reference parses the *raw first
 repeat* (lib/recc_decode_impl.cc:112,117) and ignores the corrected output
 it just computed; SURVEY.md §7 marks that a bug to fix consciously.
 
-SYMBOL-DOMAIN FORMULATION (the hot-path rework, tools/profile_rx22.out:
-the bit-domain decode was 1.02 ms of the 2.6 ms 1024-channel pipeline on
-~7 MB of captures — all dtype churn, not math):
+SYMBOL-DOMAIN FORMULATION (the bit-domain decode spent its time on
+dtype churn over ~7 MB of captures, not on math):
 
 * everything consumes the 0/1 symbols through ONE bfloat16 cast;
 * Manchester decode + per-repeat BCH syndromes collapse into a single
@@ -45,8 +44,8 @@ the bit-domain decode was 1.02 ms of the 2.6 ms 1024-channel pipeline on
   (..., 7, 5, 96) view), and only those 96 symbols become bits;
 * Manchester bad counts are (1 - d^2) masked reductions on the adjacent
   difference d (exact for 0/1 symbols), never strided views;
-* DCC bits ride a one-hot matmul over the full capture width (a strided
-  7-column slice is a lane-granularity gather, tools/profile_dec7.out).
+* DCC bits ride a one-hot matmul over the full capture width (in place
+  of a strided 7-column slice).
 
 All arithmetic accumulates in f32 (counts <= 480: exact); outputs are
 bit-identical to the bit-domain decode (tests/test_rx.py golden decode,
@@ -137,9 +136,7 @@ def decode_bursts(symbols, policy: str = "first_ok",
     syn = jnp.mod(jnp.asarray(c) - raw, 2.0)
     syn = syn.reshape(batch + (NUM_WORDS, NUM_REPEATS, 12)).astype(jnp.int32)
     idx = packbits(syn, jnp.int32)                        # (..., 7, 5)
-    # gather-free packed-LUT lookup (codec/bch.py:packed_lut_lookup —
-    # a plain (4096,)[idx] gather measured 0.52 ms of the 1024-channel
-    # pipeline, tools/profile_dec9.out)
+    # gather-free packed-LUT lookup (codec/bch.py:packed_lut_lookup)
     g = packed_lut_lookup(idx, recc_decode_table_packed())
 
     swr = sw.reshape(batch + (NUM_WORDS, NUM_REPEATS, 2 * WORD_CODED_BITS))
@@ -189,10 +186,10 @@ def decode_bursts(symbols, policy: str = "first_ok",
             # subset sums, so ties break deterministically toward
             # earlier repeats — the reference's own preference order.
             # The epsilons use <= 7 mantissa bits so the weights are
-            # EXACT IN BFLOAT16: TPU f32 einsums lower to bf16 MXU
-            # input passes at default precision (the packed-LUT
-            # incident, CLAUDE.md), which would silently round finer
-            # epsilons back to 1.0 and defeat the tie-break on chip.
+            # EXACT IN BFLOAT16 (and so in TF32): default matmul
+            # precision may round f32 operands to either (the
+            # packed-LUT incident, codec/bch.py), which would silently
+            # round finer epsilons back to 1.0 and defeat the tie-break.
             # Max total perturbation 2*0.242 + 0.242 < 1 = the minimum
             # non-tie margin, so true majorities can never flip
             # (tests/test_rx.py::test_majority_tie_break_weights).
@@ -216,10 +213,8 @@ def decode_bursts(symbols, policy: str = "first_ok",
     else:
         raise ValueError(f"unknown repeat policy {policy!r}")
 
-    # DCC bits via one-hot matmul over the full capture width: a
-    # stride-2 slice of 7 columns is a lane-granularity gather that
-    # measured ~0.45 ms of the 1024-ch pipeline (tools/profile_dec7.out,
-    # slice 1380 -> matmul 1533 Msps).  Bit value = complement of the
+    # DCC bits via one-hot matmul over the full capture width (in place
+    # of a stride-2 slice of 7 columns).  Bit value = complement of the
     # first half-symbol (lib/utils.cc:36-53).
     sel = np.zeros((s.shape[-1], DCC_BITS), np.float32)
     sel[np.arange(0, 2 * DCC_BITS, 2), np.arange(DCC_BITS)] = 1.0

@@ -99,8 +99,7 @@ GUARD_INDEX = 4  # noise-reference column (mean of the guard bins)
 # orders of magnitude; dead-carrier discriminator noise is spectrally
 # white, so its ST-bin level matches the guard bins — the per-frame
 # dominance gate (control/supervision.py st_guard_ratio) kills the
-# FM-click flash class the r3 voice soak observed on chip
-# (tools/soak_voice_tpu.out run 1).
+# FM-click flash class the voice soak observed on the device.
 GUARD_TONES_HZ = (8_200.0, 11_800.0)
 
 
@@ -134,7 +133,7 @@ def supervision_levels(demod, frame_len: int, fs: float, sat_agg: int = 12):
     GUARD] — GUARD is the mean amplitude of the two empty guard bins
     (GUARD_TONES_HZ), the per-frame noise reference the ST dominance
     gate compares against — and power (..., F) mean demod power per
-    frame).  Two matmuls — batched over channels this rides the MXU.
+    frame).  Two matmuls, batched over channels.
     """
     x = jnp.asarray(demod, jnp.float32)
     nf = x.shape[-1] // frame_len

@@ -105,12 +105,10 @@ def focc_frame_bits(word_pairs, busy_idle: int = 1):
         ],
         axis=-1,
     )                                                # (..., F, 101)
-    # static scatter as a one-hot matmul: jnp.take over the 463 frame
-    # positions is a per-element gather (serial scalar loads on TPU —
-    # the bits stage measured 0.36 ms of the 1.47 ms TX pipeline at
-    # 1024 channels, tools/profile_tx7/tx9.out); the (101, 463)
-    # selection matrix rides the MXU and the BI bits become a masked
-    # constant add.
+    # static scatter as a one-hot matmul in place of jnp.take over the
+    # 463 frame positions (ROADMAP S6 compares the two on the GPU): the
+    # (101, 463) selection matrix is one matmul and the BI bits become a
+    # masked constant add.
     G, bi = _frame_onehot_mats()
     picked = jnp.matmul(msg.astype(jnp.bfloat16),
                         jnp.asarray(G, jnp.bfloat16),

@@ -114,7 +114,8 @@ def main(argv=None):
     import jax
     if args.platform:
         jax.config.update("jax_platforms", args.platform)
-    jax.config.update("jax_compilation_cache_dir", "/root/repo/.jax_cache")
+    from amps_tpu.utils.compile_cache import enable_compile_cache
+    enable_compile_cache()
 
     if args.synthesize:
         n = synthesize_capture(args.capture, args.synthesize,

@@ -186,19 +186,60 @@ def test_recc_parsers_golden(rng):
         assert int(pb["SDCC1"][i]) == wb["SDCC1"]
 
 
+def _tf32(a):
+    """Round float32 to TF32 (10 explicit mantissa bits, nearest-even):
+    what an H100's tensor cores do to f32 matmul operands at default
+    precision."""
+    b = np.ascontiguousarray(a, np.float32).view(np.uint32)
+    b = (b + np.uint32(0x0FFF) + ((b >> 13) & 1)) & np.uint32(0xFFFFE000)
+    return b.view(np.float32)
+
+
+def test_integer_contractions_exact_in_tf32():
+    """The f32 contractions that carry integer payloads stay exact when
+    their operands are rounded to TF32 (integers up to 2048 survive):
+    the split-component syndrome LUT over all 4096 syndromes, and the
+    GF(2) encode matmuls of both BCH codes.  The packed LUT values
+    (2^17 magnitude) do not survive — the rounding this guards against."""
+    from amps_tpu.codec.bch import (_parity_matrix, _split_component_tables,
+                                    recc_decode_table_packed)
+
+    table = recc_decode_table_packed()
+    assert not np.array_equal(_tf32(table.astype(np.float32)),
+                              table.astype(np.float32))
+    comp = _split_component_tables(table.tobytes(), table.shape)
+    assert np.array_equal(_tf32(comp), comp)
+    idx = np.arange(4096)
+    oh_a = ((idx >> 8)[:, None] == np.arange(16)).astype(np.float32)
+    oh_r = ((idx & 0xFF)[:, None] == np.arange(256)).astype(np.float32)
+    g1 = np.einsum("ard,nr->nad", _tf32(comp), _tf32(oh_r))
+    sel = np.einsum("nad,na->nd", _tf32(g1), _tf32(oh_a))
+    packed = (sel[:, 0] + 256.0 * sel[:, 1] + 65536.0 * sel[:, 2])
+    assert np.array_equal(packed.astype(np.int64), table)
+
+    rng = np.random.default_rng(5)
+    for k, ref in ((28, bch_ref.focc_bch_encode),
+                   (36, bch_ref.recc_bch_encode)):
+        info = rng.integers(0, 2, (64, k)).astype(np.float32)
+        par = np.mod(_tf32(info) @ _tf32(_parity_matrix(k)
+                                         .astype(np.float32)), 2.0)
+        want = np.stack([ref(i.astype(np.uint8)) for i in info])
+        assert np.array_equal(par.astype(np.uint8), want[:, k:]), k
+
+
 def test_packed_lut_split_components_bf16_exact():
-    """The syndrome-LUT lookup runs at DEFAULT matmul precision, where
-    the TPU lowers f32 contractions to bf16 MXU input passes.  The r2
-    chip incident: packed 2^17-magnitude values rounded to multiples of
-    512 — every BCH decode rejected on chip while CPU stayed green
-    (tools/soak_tpu.out).  The split-component form keeps every operand
-    <= 255 (exact in bf16) and rebuilds the packed value in f32.  CPU
-    cannot reproduce the MXU rounding, so guard the property directly:
+    """The syndrome-LUT lookup runs at DEFAULT matmul precision, where a
+    device may round f32 contraction operands to bf16.  The incident
+    this guards: packed 2^17-magnitude values rounded to multiples of
+    512 — every BCH decode rejected on the device while the CPU stayed
+    green.  The split-component form keeps every operand <= 255 (exact
+    in bf16) and rebuilds the packed value in f32.  The CPU does not
+    round, so guard the property directly:
 
     1. every component-plane value must survive a bf16 round-trip;
     2. the FULL lookup over all 4096 syndromes, with every contraction
-       operand explicitly pre-rounded to bf16 (emulating the MXU input
-       pass), must equal the numpy table bit-exactly;
+       operand explicitly pre-rounded to bf16 (emulating the rounded
+       operand pass), must equal the numpy table bit-exactly;
     3. the packed rebuild must stay below f32's 2^24 integer-exact
        range."""
     import jax.numpy as jnp
@@ -217,7 +258,7 @@ def test_packed_lut_split_components_bf16_exact():
     assert int((comp[..., 0] + 256 * comp[..., 1]
                 + 65536 * comp[..., 2]).max()) < 2 ** 24
 
-    # 2: emulate the MXU bf16 input pass end to end
+    # 2: emulate the bf16 operand rounding end to end
     idx = jnp.arange(4096, dtype=jnp.int32)
     T2 = jnp.asarray(comp).astype(jnp.bfloat16).astype(jnp.float32)
     oh_a = ((idx >> 8)[..., None] == jnp.arange(16)) \

@@ -393,8 +393,8 @@ def test_repeat_gate_kills_bch_aliased_noise_repeats():
     The (48,36) code decodes PURE NOISE with p~0.29 per repeat, so the
     reference's sequential fallback (lib/recc_decode_impl.cc:100-107)
     delivers an aliased word_ok=True wrong word whenever a noise repeat
-    precedes the first clean one — the chip-observed stream64 misdecode
-    class (tools/soak_stream64_v2_run1.out).  With the gate, noise
+    precedes the first clean one — the misdecode class the 64-block
+    streaming soak observed on the device.  With the gate, noise
     repeats (>=~24 of 48 Manchester violations) are erasures: selection
     and the majority vote use clean repeats only, and a word with zero
     clean decodable repeats is honestly word_ok=False."""
@@ -454,9 +454,9 @@ def test_window_power_blocks_matches_contiguous_series(rng):
 
 
 def test_majority_tie_break_weights_are_bf16_exact():
-    """The gated-majority tie-break epsilons must survive the TPU's
-    bf16 MXU input rounding (f32 einsums lower to bf16 input passes at
-    default precision — the packed-LUT incident class): every weight
+    """The gated-majority tie-break epsilons must survive bf16 operand
+    rounding (default matmul precision may round f32 operands to bf16 —
+    the packed-LUT incident class; TF32 keeps more bits): every weight
     1 + 2^-(r+3) must be exactly representable in bfloat16, and the
     total perturbation must stay below the minimum non-tie margin."""
     import jax.numpy as jnp

@@ -156,8 +156,8 @@ def test_dead_carrier_noise_is_squelched():
     """A dead carrier demodulates to full-scale discriminator noise
     (power >> any live modulation); the max_power squelch must treat it
     as carrier loss — fade release fires, and the random ST-bin hits
-    never surface as flash/answer/release(ST) events (chip-observed
-    spurious 'flash', tools/soak_voice_tpu.out run 1)."""
+    never surface as flash/answer/release(ST) events (the spurious
+    'flash' the voice soak observed on the device)."""
     cfg = SupervisionConfig(fade_timeout_s=0.5)
     sup = ChannelSupervisor(355, scc=1, config=cfg, state=CONVERSATION)
     # full-scale white discriminator noise, deviation-normalized:

@@ -2,9 +2,10 @@
 offset applied to the RX IQ; measure detection + word success vs CFO."""
 import numpy as np
 import jax
-import sys; sys.path.insert(0, "/root/repo")
+import os, sys; sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 jax.config.update("jax_platforms", "cpu")
-jax.config.update("jax_compilation_cache_dir", "/root/repo/.jax_cache")
+from amps_tpu.utils.compile_cache import enable_compile_cache
+enable_compile_cache()
 
 from amps_tpu import PipelineConfig
 from amps_tpu.rx import correlator, decoder

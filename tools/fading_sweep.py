@@ -1,8 +1,9 @@
 """Rayleigh-fading link sweep (docs/BER.md fading section)."""
-import sys; sys.path.insert(0, "/root/repo")
+import os, sys; sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import jax
 jax.config.update("jax_platforms", "cpu")
-jax.config.update("jax_compilation_cache_dir", "/root/repo/.jax_cache")
+from amps_tpu.utils.compile_cache import enable_compile_cache
+enable_compile_cache()
 from amps_tpu.eval.ber import recc_fading_curve
 
 SNRS = [20.0, 14.0, 10.0, 6.0]

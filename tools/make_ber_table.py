@@ -13,8 +13,9 @@ import sys
 import numpy as np
 import jax
 jax.config.update("jax_platforms", "cpu")
-jax.config.update("jax_compilation_cache_dir", "/root/repo/.jax_cache")
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+from amps_tpu.utils.compile_cache import enable_compile_cache
+enable_compile_cache()
 from amps_tpu.eval.ber import recc_link_curve
 
 TRIALS = 1024
@@ -92,9 +93,9 @@ lines += [
 ]
 # preserve hand-maintained sections (CFO, fading) below the AWGN table
 marker = "## Carrier frequency offset tolerance"
-old = open("/root/repo/docs/BER.md").read()
+old = open(os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "docs", "BER.md")).read()
 tail = old[old.index(marker):] if marker in old else ""
-open("/root/repo/docs/BER.md", "w").write("\n".join(lines) + tail)
+open(os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "docs", "BER.md"), "w").write("\n".join(lines) + tail)
 print("written docs/BER.md (tail sections preserved)")
 for s in snrs:
     print(s, curve[s], curve_maj[s].get("majority_vote_fraction"))

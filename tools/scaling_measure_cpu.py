@@ -11,15 +11,16 @@ divides by N while this overhead term is what scaling efficiency pays
 (docs/SCALING.md model); here we observe it directly at N=1..8 with
 zero hardware parallelism available.
 """
-import json, sys, time
-sys.path.insert(0, "/root/repo")
 import os
+import json, sys, time
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 os.environ["JAX_PLATFORMS"] = "cpu"
 os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=8"
 import numpy as np
 import jax
 jax.config.update("jax_platforms", "cpu")
-jax.config.update("jax_compilation_cache_dir", "/root/repo/.jax_cache")
+from amps_tpu.utils.compile_cache import enable_compile_cache
+enable_compile_cache()
 import jax.numpy as jnp
 
 from amps_tpu.parallel.mesh import make_mesh, MeshSpec
@@ -29,7 +30,7 @@ from amps_tpu.parallel.pipeline import (MultichannelSpec, full_demod_halo,
                                         sharded_stream_state)
 from amps_tpu.eval.traffic import random_events, synthesize_reverse_band
 
-OUT = open("/root/repo/tools/scaling_measure_cpu.out", "a", buffering=1)
+OUT = open(os.path.join(os.path.dirname(os.path.abspath(__file__)), "scaling_measure_cpu.out"), "a", buffering=1)
 def emit(**kw):
     OUT.write(json.dumps(kw) + "\n"); print(kw, flush=True)
 

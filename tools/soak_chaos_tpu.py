@@ -1,13 +1,15 @@
 """Chaos variant of the on-chip soak: the 1024-channel receiver 'dies'
 mid-stream (injected failure on the 3rd block) and is rebuilt by
 ResilientReceiver from its last snapshot; all 112 events must STILL
-detect and decode bit-exact on the real TPU."""
+detect and decode bit-exact on the device."""
+import os
 import json, sys, time
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import numpy as np
 import jax
 import jax.numpy as jnp
-jax.config.update("jax_compilation_cache_dir", "/root/repo/.jax_cache")
+from amps_tpu.utils.compile_cache import enable_compile_cache
+enable_compile_cache()
 
 from amps_tpu.dsp import channelizer as chz
 from amps_tpu.dsp.fm import fm_modulate_symbols
@@ -17,7 +19,7 @@ from amps_tpu.runtime.resilient import ResilientReceiver
 from amps_tpu.runtime.streamer import MultichannelReceiver
 from amps_tpu.tx import recc_ms
 
-OUT = open("/root/repo/tools/soak_chaos_tpu.out", "a", buffering=1)
+OUT = open(os.path.join(os.path.dirname(os.path.abspath(__file__)), "soak_chaos_tpu.out"), "a", buffering=1)
 def emit(**kw):
     OUT.write(json.dumps(kw) + "\n"); print(kw, flush=True)
 
@@ -40,7 +42,7 @@ for ev in events:
         jnp.asarray(bb)[:n])
 x, _ = chz.synthesize(Y, spec.chz_spec, chz.synthesizer_init(spec.chz_spec))
 x = x + 0.02 * jax.random.normal(jax.random.PRNGKey(1), x.shape, jnp.float32)
-float(jnp.sum(x[:8]))
+x.block_until_ready()
 emit(event="synthesized", n_events=len(events))
 
 res = ResilientReceiver(

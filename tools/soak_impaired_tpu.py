@@ -3,12 +3,14 @@ frequency offset inside the +-2.5 ppm mobile tolerance (+-2.1 kHz),
 Rayleigh fading at a random Doppler (walking..highway), a random DCC,
 and band noise — the full robustness stack exercised simultaneously
 across a 1024-channel band."""
+import os
 import json, sys, time
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import numpy as np
 import jax
 import jax.numpy as jnp
-jax.config.update("jax_compilation_cache_dir", "/root/repo/.jax_cache")
+from amps_tpu.utils.compile_cache import enable_compile_cache
+enable_compile_cache()
 
 from amps_tpu.dsp import channelizer as chz
 from amps_tpu.dsp.fm import fm_modulate_symbols
@@ -18,7 +20,7 @@ from amps_tpu.parallel.pipeline import MultichannelSpec
 from amps_tpu.runtime.streamer import MultichannelReceiver
 from amps_tpu.tx import recc_ms
 
-OUT = open("/root/repo/tools/soak_impaired_tpu.out", "a", buffering=1)
+OUT = open(os.path.join(os.path.dirname(os.path.abspath(__file__)), "soak_impaired_tpu.out"), "a", buffering=1)
 def emit(**kw):
     OUT.write(json.dumps(kw) + "\n"); print(kw, flush=True)
 
@@ -55,7 +57,7 @@ for ev in events:
     meta.append((ev, dcc, cfo, fd))
 x, _ = chz.synthesize(Y, spec.chz_spec, chz.synthesizer_init(spec.chz_spec))
 x = x + 0.01 * jax.random.normal(jax.random.PRNGKey(2), x.shape, jnp.float32)
-float(jnp.sum(x[:8]))
+x.block_until_ready()
 emit(event="synthesized")
 
 rx = MultichannelReceiver(spec, threshold=0.55, max_bursts=6, min_rssi=0.02)

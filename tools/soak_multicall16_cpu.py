@@ -20,17 +20,18 @@ single shared fvc block, lib/fvc_impl.cc; voice channels hardcoded to
 355/356, lib/recc_decode_impl.cc:205,252).
 """
 
+import os
 import json
 import socket
 import sys
 import threading
 import time
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import numpy as np  # noqa: E402
 
-OUT = open("/root/repo/tools/soak_multicall16_cpu.out", "a", buffering=1)
+OUT = open(os.path.join(os.path.dirname(os.path.abspath(__file__)), "soak_multicall16_cpu.out"), "a", buffering=1)
 
 
 def emit(**kw):
@@ -53,7 +54,8 @@ def main():
                           "--xla_force_host_platform_device_count=8")
     import jax
     jax.config.update("jax_platforms", "cpu")
-    jax.config.update("jax_compilation_cache_dir", "/root/repo/.jax_cache")
+    from amps_tpu.utils.compile_cache import enable_compile_cache
+    enable_compile_cache()
 
     from amps_tpu.control.station import BaseStation
     from apps import bs_app

@@ -16,16 +16,19 @@ the dead carriers after teardown), hang-ups release with the ST
 reason, the fade releases with the fade reason, and the long call
 survives to the end.
 """
+import os
 import dataclasses
 import json
 import sys
 import time
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import numpy as np
 import jax
 
-jax.config.update("jax_compilation_cache_dir", "/root/repo/.jax_cache")
+from amps_tpu.utils.compile_cache import enable_compile_cache
+
+enable_compile_cache()
 import jax.numpy as jnp  # noqa: E402
 
 from amps_tpu.config import SystemConfig  # noqa: E402
@@ -36,7 +39,7 @@ from amps_tpu.dsp.fm import fm_modulate  # noqa: E402
 from amps_tpu.parallel.pipeline import MultichannelSpec  # noqa: E402
 from amps_tpu.runtime.streamer import MultichannelReceiver  # noqa: E402
 
-OUT = open("/root/repo/tools/soak_multicall_tpu.out", "a", buffering=1)
+OUT = open(os.path.join(os.path.dirname(os.path.abspath(__file__)), "soak_multicall_tpu.out"), "a", buffering=1)
 
 
 def emit(**kw):
@@ -102,7 +105,7 @@ x, _ = chz.synthesize(jnp.asarray(Y), spec.chz_spec,
 x = x + 0.005 * jax.random.normal(jax.random.PRNGKey(7), x.shape,
                                   jnp.float32)
 del Y
-float(jnp.sum(x[:8]))
+x.block_until_ready()
 emit(event="synthesized", samples=int(x.shape[0]))
 
 system = SystemConfig(voice_channels=tuple(c for c, *_ in CALLS))

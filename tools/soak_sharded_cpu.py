@@ -11,13 +11,15 @@ transmitted it, then position-checked — so a same-channel neighbor can
 never masquerade as the expected event, and every duplicate/ghost is
 classified rather than inferred from window arithmetic.
 """
+import os
 import json, sys, time
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import numpy as np
 import jax
 jax.config.update("jax_platforms", "cpu")
 jax.config.update("jax_num_cpu_devices", 8)
-jax.config.update("jax_compilation_cache_dir", "/root/repo/.jax_cache")
+from amps_tpu.utils.compile_cache import enable_compile_cache
+enable_compile_cache()
 import jax.numpy as jnp
 
 from amps_tpu.dsp import channelizer as chz
@@ -29,7 +31,7 @@ from amps_tpu.parallel.pipeline import MultichannelSpec
 from amps_tpu.parallel.stream import ShardedReceiver
 from amps_tpu.tx import recc_ms
 
-OUT = open("/root/repo/tools/soak_sharded_cpu.out", "a", buffering=1)
+OUT = open(os.path.join(os.path.dirname(os.path.abspath(__file__)), "soak_sharded_cpu.out"), "a", buffering=1)
 def emit(**kw):
     OUT.write(json.dumps(kw) + "\n"); print(kw, flush=True)
 

@@ -16,7 +16,7 @@ import json
 import os
 import sys
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 os.environ.setdefault("JAX_PLATFORMS", "cpu")
 _flags = os.environ.get("XLA_FLAGS", "")
 if "xla_force_host_platform_device_count" not in _flags:
@@ -27,7 +27,8 @@ import numpy as np
 import jax
 
 jax.config.update("jax_platforms", "cpu")
-jax.config.update("jax_compilation_cache_dir", "/root/repo/.jax_cache")
+from amps_tpu.utils.compile_cache import enable_compile_cache
+enable_compile_cache()
 import jax.numpy as jnp  # noqa: E402
 
 import dataclasses  # noqa: E402
@@ -41,7 +42,7 @@ from amps_tpu.parallel.mesh import MeshSpec, make_mesh  # noqa: E402
 from amps_tpu.parallel.pipeline import MultichannelSpec  # noqa: E402
 from amps_tpu.parallel.stream import ShardedReceiver  # noqa: E402
 
-OUT = open("/root/repo/tools/soak_sharded_voice_cpu.out", "a", buffering=1)
+OUT = open(os.path.join(os.path.dirname(os.path.abspath(__file__)), "soak_sharded_voice_cpu.out"), "a", buffering=1)
 
 
 def emit(**kw):

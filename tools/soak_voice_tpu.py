@@ -1,7 +1,7 @@
 """ON-CHIP voice/supervision soak (VERDICT r2 item 8): every previous
 chip soak was RECC-only; this one drives the VOICE path — SAT + ST
 supervisory tones and NBFM voice through the 1024-channel analysis
-bank on the real TPU — and runs a full supervised call timeline off the
+bank on the device — and runs a full supervised call timeline off the
 measured levels: ringing (ST) -> answer (ST removal) -> conversation ->
 intra-station handoff (SAT moves to the new channel, supervision
 resumes) -> deep fade -> fade-timeout release (553 §2.4.2/§2.7.2).
@@ -12,11 +12,13 @@ timeline fits ~3.4 s of 1024-channel wideband; the measurement math
 two matmuls) runs with the exact bench dtypes — the class of chip-only
 numeric trap this soak exists to catch (cf. the BCH precision bug).
 """
+import os
 import json, sys, time
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import numpy as np
 import jax
-jax.config.update("jax_compilation_cache_dir", "/root/repo/.jax_cache")
+from amps_tpu.utils.compile_cache import enable_compile_cache
+enable_compile_cache()
 import jax.numpy as jnp
 
 from amps_tpu.control.station import BaseStation
@@ -26,7 +28,7 @@ from amps_tpu.dsp.fm import fm_modulate
 from amps_tpu.parallel.pipeline import MultichannelSpec
 from amps_tpu.runtime.streamer import MultichannelReceiver
 
-OUT = open("/root/repo/tools/soak_voice_tpu.out", "a", buffering=1)
+OUT = open(os.path.join(os.path.dirname(os.path.abspath(__file__)), "soak_voice_tpu.out"), "a", buffering=1)
 def emit(**kw):
     OUT.write(json.dumps(kw) + "\n"); print(kw, flush=True)
 
@@ -75,7 +77,7 @@ x, _ = chz.synthesize(jnp.asarray(Y), spec.chz_spec,
 x = x + 0.005 * jax.random.normal(jax.random.PRNGKey(7), x.shape,
                                   jnp.float32)
 del Y
-float(jnp.sum(x[:8]))
+x.block_until_ready()
 emit(event="synthesized", samples=int(x.shape[0]))
 
 # --- station + supervised receiver ----------------------------------------

@@ -13,13 +13,14 @@ import json
 import os
 import sys
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 os.environ.setdefault("JAX_PLATFORMS", "cpu")
 import numpy as np
 import jax
 
 jax.config.update("jax_platforms", "cpu")
-jax.config.update("jax_compilation_cache_dir", "/root/repo/.jax_cache")
+from amps_tpu.utils.compile_cache import enable_compile_cache
+enable_compile_cache()
 import jax.numpy as jnp  # noqa: E402
 
 from amps_tpu.config import PipelineConfig  # noqa: E402
@@ -29,7 +30,7 @@ from amps_tpu.dsp.fm import fm_modulate, quadrature_demod  # noqa: E402
 from amps_tpu.eval import channel  # noqa: E402
 from amps_tpu.rx.voice import supervision_levels  # noqa: E402
 
-OUT = open("/root/repo/tools/sup_fading_sweep.out", "a", buffering=1)
+OUT = open(os.path.join(os.path.dirname(os.path.abspath(__file__)), "sup_fading_sweep.out"), "a", buffering=1)
 
 
 def emit(**kw):
@@ -166,7 +167,7 @@ lines += [
     "Regression: tests/test_supervision.py::test_supervision_rides_out_fading.",
     "",
 ]
-path = "/root/repo/docs/BER.md"
+path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "docs", "BER.md")
 doc = open(path).read()
 marker = "\n## Supervision under Rayleigh fading"
 if marker in doc:
